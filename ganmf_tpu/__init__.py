@@ -1,4 +1,4 @@
-"""ganmf-tpu: a TPU-native (JAX/XLA/Pallas) recommender-systems framework.
+"""ganmf-tpu: a JAX/XLA recommender-systems framework.
 
 A from-scratch rebuild of the capabilities of the GANMF research framework
 (SAC'22, "GAN-based Matrix Factorization for Recommender Systems"): four
@@ -8,12 +8,12 @@ P3alpha, ...), a holdout top-K ranking evaluator with ~20 metrics, a dataset
 pipeline (ingest / reindex / k-core / per-user split), a Bayesian
 hyperparameter search harness, and artifact-compatible experiment CLIs.
 
-Design principles (TPU-first, not a port):
-  * The user-item matrix lives dense in HBM; training epochs are single
-    jitted ``lax.scan`` programs (no per-step host round trips).
+Design principles (accelerator-first, not a port):
+  * The user-item matrix lives dense in device memory; training epochs are
+    single jitted ``lax.scan`` programs (no per-step host round trips).
   * Scoring and evaluation are vectorized device programs built around
     ``lax.top_k``; metrics are computed on device and reduced once.
-  * Multi-chip scaling goes through ``jax.sharding.Mesh`` + collectives
+  * Multi-device scaling goes through ``jax.sharding.Mesh`` + collectives
     (see :mod:`ganmf_tpu.parallel`), never through host-side loops.
 """
 
@@ -22,34 +22,38 @@ __version__ = "0.1.0"
 import os as _os
 
 
+def compilation_cache_dir():
+    """Where the persistent compilation cache lives: $JAX_COMPILATION_CACHE_DIR
+    when it is set (the empty string disables the cache: None), otherwise
+    the fixed ``.jax_cache`` directory of the checkout that holds this
+    package. The path is part of the cache key, so it never depends on a
+    temporary name, a pid or the time."""
+    cache_dir = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if cache_dir is not None:
+        return cache_dir or None
+    checkout = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    return _os.path.join(checkout, ".jax_cache")
+
+
 def _enable_compilation_cache() -> None:
-    """Point JAX at a persistent on-disk compilation cache.
+    """Point JAX at the persistent on-disk compilation cache.
 
     The reference use-case is 50-trial x 54-config hyperparameter sweeps
     (reference RecSysExp.py:417, get_best_params.sh) where each trial is a
-    fresh process: without a persistent cache every process re-pays
-    10-100x of XLA compile over actual compute (e.g. 417 s wall for ~26 s
-    of GANMF LastFM epochs).  ``JAX_COMPILATION_CACHE_DIR`` overrides the
-    location; set it to the empty string to disable entirely.
+    fresh process: without a persistent cache every process re-pays the
+    XLA compile of every program it runs.
     """
-    cache_dir = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
-    if cache_dir == "":
-        return  # explicit opt-out
+    cache_dir = compilation_cache_dir()
     if cache_dir is None:
-        cache_dir = _os.path.join(
-            _os.path.expanduser("~"), ".cache", "ganmf_tpu", "jax_cache"
-        )
-    try:
-        import jax
+        return  # explicit opt-out
+    import jax
 
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # Cache every compilation that takes measurable time; the default
-        # 1 s floor skips most of the small per-model programs whose
-        # aggregate compile cost dominates harness wall time.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - never block import on cache setup
-        pass
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    # Cache every compilation that takes measurable time; the default
+    # 1 s floor skips most of the small per-model programs whose
+    # aggregate compile cost dominates harness wall time.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 
 _enable_compilation_cache()

@@ -46,7 +46,6 @@ from ganmf_tpu.models import (
     TopPop,
 )
 from ganmf_tpu.tune import Categorical, Integer
-from ganmf_tpu.tune.gp import CheckpointSaver, dummy_minimize, gp_minimize, load
 from ganmf_tpu.utils.seeding import set_seed
 
 SEED = 1337
@@ -260,6 +259,9 @@ class RecSysExp:
 
     # -- search driver (RecSysExp.py:313-412) ----------------------------------
     def tune(self, params, evals: int = 10, seed: Optional[int] = None):
+        # the GP surrogate needs scikit-learn; only tuning pays that import
+        from ganmf_tpu.tune.gp import CheckpointSaver, dummy_minimize, gp_minimize, load
+
         notify(
             "Started " + self.recommender_class.RECOMMENDER_NAME
             + self.train_mode + self.similarity_mode + " " + self.dataset_name

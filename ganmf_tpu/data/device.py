@@ -1,10 +1,10 @@
 """HBM-resident dense views of sparse interaction matrices.
 
 The reference densifies CSR rows on host every minibatch
-(reference: GANRec/GANMF.py:184). On TPU the entire URM fits in HBM for any
-dataset this framework targets at single-chip scale (<= a few GB dense), so
-we materialize it once and let every train/eval step gather rows on device.
-For multi-chip runs the dense matrix is sharded over the mesh's user axis
+(reference: GANRec/GANMF.py:184). On the device the entire URM fits in
+memory for any dataset this framework targets at single-device scale
+(<= a few GB dense), so we materialize it once and let every train/eval
+step gather rows on device. For multi-device runs the dense matrix is sharded over the mesh's user axis
 (see ganmf_tpu.parallel).
 """
 
@@ -24,9 +24,8 @@ import scipy.sparse as sps
 
 @functools.partial(jax.jit, static_argnames=("shape",))
 def _segment_dense(lin_idx: jnp.ndarray, data: jnp.ndarray, shape):
-    # segment_sum lowers to a sorted scatter-add that compiles ~20x faster
-    # than a 2D .at[].set scatter on this TPU toolchain (measured 8s vs
-    # 167s at LastFM shapes) and runs in tens of microseconds
+    # one flat segment_sum over linear indices instead of a 2D .at[].set
+    # scatter: a sorted 1D scatter-add, cheap to compile at catalog sizes
     flat = jax.ops.segment_sum(data, lin_idx, num_segments=shape[0] * shape[1])
     return flat.reshape(shape)
 

@@ -36,24 +36,6 @@ from ganmf_tpu.eval.metrics import (
 
 from ganmf_tpu.utils.debug import debug_enabled as _debug_enabled
 
-_HI = jax.lax.Precision.HIGHEST
-
-
-@jax.jit
-def _pair_rmse(U_b, V, cold_b, ids, tvals, pvalid, seen_pairs):
-    """Per-user RMSE over the user's test items from factor dot products —
-    the raw-score path the fused ranking kernel doesn't produce
-    (reference Evaluator.py:298-299 semantics, identical to the dense
-    [B, I] computation restricted to test pairs)."""
-    ve = jnp.take(V, ids, axis=0)  # [B, P, K]
-    s = jnp.einsum("bk,bpk->bp", U_b, ve, precision=_HI)
-    s = jnp.where(cold_b[:, None] | seen_pairs, -jnp.inf, s)
-    fin = pvalid & jnp.isfinite(s)
-    sq = jnp.where(fin, (s - tvals) ** 2, 0.0)
-    cnt = jnp.sum(fin, axis=1)
-    return jnp.where(cnt > 0, jnp.sqrt(jnp.sum(sq, axis=1) / jnp.maximum(cnt, 1.0)), jnp.nan)
-
-
 @functools.partial(jax.jit, static_argnames=("cutoffs",))
 def _diversity_block(M_dev, top_idx, top_val, valid, cutoffs):
     """Per-cutoff intra-list diversity sums for one user block (vectorized
@@ -82,7 +64,7 @@ def _diversity_block(M_dev, top_idx, top_val, valid, cutoffs):
 
 @jax.jit
 def _pair_rmse_from_probe(ps, pf, tvals, pvalid):
-    """Per-user RMSE from the fused kernel's test-pair probes: ps[b, p] is
+    """Per-user RMSE from the fused program's test-pair probes: ps[b, p] is
     the masked score at test item p (0 when masked to -inf), pf[b, p] > 0
     iff that score was finite (reference Evaluator.py:298-299 semantics)."""
     fin = pvalid & (pf > 0)
@@ -226,13 +208,13 @@ class _BaseEvaluator:
     def _restrict_candidates(self, scores: jnp.ndarray, user_ids: np.ndarray) -> jnp.ndarray:
         return scores
 
-    # -- fused MF ranking path --------------------------------------------------
+    # -- fused ranking path -----------------------------------------------------
 
     def _can_fuse(self, model) -> bool:
-        """MF-family models rank through the Pallas fused scorer: the [B, I]
-        score matrix stays in VMEM (ops/pallas_scorer.py). Requires plain
-        holdout semantics (no candidate restriction, no mesh, no KNN cold
-        fallback) and built factors."""
+        """MF-family models rank through the fused matmul+top_k+probe
+        program (ops/scoring.py). Requires plain holdout semantics (no
+        candidate restriction, no mesh, no KNN cold fallback) and built
+        factors."""
         return (
             self._plan is None
             and self.diversity_object is None
@@ -244,46 +226,10 @@ class _BaseEvaluator:
             and not getattr(model, "use_bias", False)
         )
 
-    def _fused_block(self, model, uids_np: np.ndarray, max_len: int = None,
-                     pair_len: int = None):
-        from ganmf_tpu.ops.pallas_scorer import masked_topk_scores
-
-        uids = jnp.asarray(uids_np, dtype=jnp.int32)
-        U, V, cold = model._factors_device()
-        U_b = jnp.take(U, uids, axis=0)
-        if self.exclude_seen:
-            seen = _seen_rows(model, uids, max_len=max_len)
-        else:
-            seen = jnp.zeros((len(uids_np), self.n_items), bool)
-        if self._ignore_items_mask is not None:
-            seen = seen | self._ignore_items_mask[None, :]
-        interpret = jax.default_backend() == "cpu"
-        # tile 2048 amortizes the per-tile top-K merge sweep: measured 7.5 ms
-        # vs 16.6 ms at tile 512 for 1000 LastFM users (k=50)
-        vals, idx = masked_topk_scores(
-            U_b, V, seen, k=self.max_cutoff,
-            tile=min(2048, self.n_items), interpret=interpret,
-        )
-        cold_b = jnp.take(cold, uids)
-        vals = jnp.where(cold_b[:, None], -jnp.inf, vals)
-
-        ids, tvals, pvalid = self._padded_test_arrays()
-        tp = pair_len if pair_len is not None else ids.shape[1]
-        pair_ids = jnp.take(ids, uids, axis=0)[:, :tp]
-        seen_pairs = jnp.take_along_axis(seen, pair_ids, axis=1)
-        user_rmse = _pair_rmse(
-            U_b, V, cold_b,
-            pair_ids, jnp.take(tvals, uids, axis=0)[:, :tp],
-            jnp.take(pvalid, uids, axis=0)[:, :tp], seen_pairs,
-        )
-        return vals, idx, user_rmse
-
-    # -- fused similarity-family ranking path ---------------------------------
-
     def _can_fuse_sim(self, model) -> bool:
         """Similarity-matrix models (URM[u] @ W or W[u] @ URM) rank through
-        one fused XLA matmul+top_k+probe program when their operands are dense on
-        device; same holdout-semantics restrictions as _can_fuse."""
+        the same fused program when their operands are dense on device;
+        same holdout-semantics restrictions as _can_fuse."""
         from ganmf_tpu.models.base import (
             ItemSimilarityRecommender,
             UserSimilarityRecommender,
@@ -305,25 +251,19 @@ class _BaseEvaluator:
             return model._w_device() is not False
         return False
 
-    def _fused_sim_block(self, model, uids_np: np.ndarray, max_len: int = None,
-                         pair_len: int = None):
+    def _fused_block(self, model, uids_np: np.ndarray, max_len: int = None,
+                     pair_len: int = None):
         from ganmf_tpu.models import base as base_mod
-        from ganmf_tpu.ops.pallas_scorer import masked_topk_matmul
+        from ganmf_tpu.ops.scoring import masked_topk_matmul
 
         uids = jnp.asarray(uids_np, dtype=jnp.int32)
-        # the model builds (rows, right): item-based URM[u] x W, user-based
-        # W[u] x URM — with the f32 operand split into bf16 planes when the
-        # other side is bf16-exact (binary profiles) AND the catalog exceeds
-        # base._SIM_SPLIT_MIN_ITEMS (3x the MXU rate of the HIGHEST
-        # contraction at ~1e-5 relative score error; small catalogs keep the
-        # bitwise HIGHEST path so exact ties rank identically to recommend())
+        # the model builds (rows, right): MF U[u] x V^T, item-based
+        # URM[u] x W, user-based W[u] x URM — with the f32 operand split
+        # into bf16 planes when the other side is bf16-exact (binary
+        # profiles) AND the catalog exceeds base._SIM_SPLIT_MIN_ITEMS (small
+        # catalogs keep the bitwise HIGHEST path so exact ties rank
+        # identically to recommend())
         rows, right = model._fused_serving_operands(uids, max_len=max_len)
-        # ranking stays on tiled_topk at every size: approx_max_k at
-        # recall_target=1.0 lowers to a full-row sort whose value+index
-        # temps (~0.8 GB per 3.7k-user block at ML-20M) OOM exactly the
-        # catalog sizes it would help — measured, see masked_topk_matmul's
-        # use_approx note
-        large = False
         # item-based models score with exactly the profile that defines
         # "seen": derive the mask from the left operand inside the fused
         # program instead of re-scattering identical [B, I] rows
@@ -335,19 +275,21 @@ class _BaseEvaluator:
         )
         if mask_from_rows:
             seen = None
-        elif self.exclude_seen:
-            seen = _seen_rows(model, uids, max_len=max_len)
         else:
-            seen = jnp.zeros((len(uids_np), self.n_items), bool)
-        if not mask_from_rows and self._ignore_items_mask is not None:
-            seen = seen | self._ignore_items_mask[None, :]
+            if self.exclude_seen:
+                seen = _seen_rows(model, uids, max_len=max_len)
+            else:
+                seen = jnp.zeros((len(uids_np), self.n_items), bool)
+            if self._ignore_items_mask is not None:
+                seen = seen | self._ignore_items_mask[None, :]
+            seen = model._fused_exclude_cold(uids, seen)
 
         ids, tvals, pvalid = self._padded_test_arrays()
         tp = pair_len if pair_len is not None else ids.shape[1]
         pair_ids = jnp.take(ids, uids, axis=0)[:, :tp]
         vals, idx, ps, pf = masked_topk_matmul(
             rows, right, seen, pair_ids, k=self.max_cutoff,
-            mask_from_rows=mask_from_rows, use_approx=large,
+            mask_from_rows=mask_from_rows,
         )
         user_rmse = _pair_rmse_from_probe(
             ps, pf, jnp.take(tvals, uids, axis=0)[:, :tp],
@@ -396,8 +338,7 @@ class _BaseEvaluator:
 
         # Cap at 4096 rows (score block [B, I] stays ~100s of MB at the
         # reference catalogs); fewer, larger blocks amortize per-dispatch
-        # overhead — dominant on latency-bound links (LastFM's 1884 users
-        # fit one block instead of two)
+        # overhead (LastFM's 1884 users fit one block instead of two)
         block_size = int(min(4096, max(1, 1e8 / max(self.n_items, 1))))
         users = np.asarray(self.usersToEvaluate, dtype=np.int64)
         n_eval = len(users)
@@ -426,15 +367,13 @@ class _BaseEvaluator:
         cutoffs = tuple(self.cutoff_list)
 
         # Accumulate on device: per-block stats stay async (no host readback
-        # inside the loop — the dominant cost on latency-bound links); one
-        # transfer at the end.
+        # inside the loop); one transfer at the end.
         scalar_acc = jnp.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=jnp.float32)
         counter_acc = jnp.zeros((len(cutoffs), self.n_items), dtype=jnp.float32)
         diversity_values = [0.0] * len(cutoffs)
 
-        use_fused = allow_fused and self._can_fuse(recommender_object)
-        use_fused_sim = (
-            allow_fused and not use_fused and self._can_fuse_sim(recommender_object)
+        use_fused = allow_fused and (
+            self._can_fuse(recommender_object) or self._can_fuse_sim(recommender_object)
         )
 
         start = 0
@@ -456,25 +395,20 @@ class _BaseEvaluator:
                 self._test_padded, uids_j, self.n_items, max_len=crop_test
             )
 
-            if use_fused or use_fused_sim:
+            if use_fused:
                 try:
-                    if use_fused:
-                        top_vals, top_idx, user_rmse = self._fused_block(
-                            recommender_object, uids,
-                            max_len=crop_train, pair_len=crop_test)
-                    else:
-                        top_vals, top_idx, user_rmse = self._fused_sim_block(
-                            recommender_object, uids,
-                            max_len=crop_train, pair_len=crop_test)
+                    top_vals, top_idx, user_rmse = self._fused_block(
+                        recommender_object, uids,
+                        max_len=crop_train, pair_len=crop_test)
                 except Exception as err:  # pragma: no cover - HBM-pressure path
-                    # the fused rankers hold extra [B, I]/[I, I] operands; at
-                    # marginal HBM (e.g. a 2.9 GB device W right after large
-                    # trainer buffers) they can OOM where the plain streamed
-                    # path still fits — degrade for the rest of this eval
-                    # instead of failing it
+                    # the fused ranker holds extra [B, I]/[I, I] operands; at
+                    # marginal device memory (e.g. a 2.9 GB device W right
+                    # after large trainer buffers) it can OOM where the plain
+                    # streamed path still fits — degrade for the rest of
+                    # this eval instead of failing it
                     if "RESOURCE_EXHAUSTED" not in str(err):
                         raise
-                    use_fused = use_fused_sim = False
+                    use_fused = False
                     continue  # redo this block through the streamed path
                 if _debug_enabled() and bool(jnp.isnan(top_vals).any()):
                     raise FloatingPointError(
@@ -550,8 +484,7 @@ class _BaseEvaluator:
             if (start // block_size) % 4 == 0:
                 jax.block_until_ready(scalar_acc)
 
-        # one packed device->host transfer: on latency-bound links every
-        # separate readback costs a full round trip
+        # one packed device->host transfer instead of one per accumulator
         packed = np.asarray(jnp.concatenate([scalar_acc.ravel(), counter_acc.ravel()]))
         ns = scalar_acc.shape[0] * scalar_acc.shape[1]
         return self._finalize(

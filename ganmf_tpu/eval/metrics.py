@@ -127,8 +127,9 @@ def evaluate_batch_from_topk(
     cutoffs: Tuple[int, ...],
     max_cutoff: int,
 ) -> BatchStats:
-    """Metrics from a precomputed ranking — the [B, I] score matrix never
-    exists in HBM (it stays in VMEM inside ops.pallas_scorer)."""
+    """Metrics from a precomputed ranking (ops.scoring.masked_topk_matmul
+    ranks and probes the [B, I] scores; only [B, k] and [B, P] reach this
+    program)."""
     return _evaluate_core(
         top_vals, top_idx, test_ratings, n_pos, user_valid, item_novelty,
         pop_normalized, user_rmse, cutoffs, max_cutoff,

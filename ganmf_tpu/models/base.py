@@ -46,9 +46,9 @@ def check_matrix(X, format: str = "csc", dtype=np.float32):
 _DEVICE_PRUNE_THRESHOLD = 1 << 26
 
 # bf16 planes the similarity-family scoring matmul splits its f32 operand
-# into when the other operand is bf16-exact: 2 gives ~16 mantissa bits at
-# 1/3 the MXU cost of the HIGHEST f32 contraction, 3 gives f32-grade at
-# 1/2. 0 disables splitting (always HIGHEST).
+# into when the other operand is bf16-exact: 2 gives ~16 mantissa bits in
+# two bf16 tensor-core products, 3 gives f32-grade in three. 0 disables
+# splitting (always HIGHEST).
 _SIM_MATMUL_PASSES = int(os.environ.get("GANMF_TPU_SIM_PASSES", "2"))
 
 # Catalog size below which the split-plane path stays OFF: the planes are a
@@ -198,8 +198,8 @@ class Recommender:
 
     # Above this dense-URM size the [U, I] matrix stays off-device and
     # profile/seen rows are scatter-built per block from padded-CSR storage
-    # (O(nnz) HBM). ML-20M's 138k x 26.7k dense URM is 14.8 GB — past a
-    # v5e's HBM on its own. Override with $GANMF_TPU_DENSE_URM_GB.
+    # (O(nnz) device memory). ML-20M's 138k x 26.7k dense URM is 14.8 GB.
+    # Override with $GANMF_TPU_DENSE_URM_GB.
     _DENSE_URM_BYTE_LIMIT = int(float(os.environ.get("GANMF_TPU_DENSE_URM_GB", "6")) * (1 << 30))
 
     def _urm_streams(self) -> bool:
@@ -371,11 +371,10 @@ class Recommender:
 
     def recommend_fused(self, user_id_array, cutoff: int = 20, remove_seen_flag: bool = True):
         """Serving-scale ranking that keeps the [B, I] score block on device
-        (ops/pallas_scorer.masked_topk_matmul): one fused matmul + seen-mask +
+        (ops/scoring.masked_topk_matmul): one fused matmul + seen-mask +
         top-K program, only the [B, k] winners reach the host. Identical
         lists to recommend() (same lowest-index tie resolution). Models
-        without device-resident operands fall back to recommend().
-        MF-family models override this with the VMEM streaming scorer."""
+        without device-resident operands fall back to recommend()."""
         ops = getattr(self, "_fused_serving_operands", None)
         if ops is None:
             return self.recommend(user_id_array, cutoff=cutoff, remove_seen_flag=remove_seen_flag)
@@ -389,7 +388,8 @@ class Recommender:
             seen = self.device_seen_rows(uids)
         else:
             seen = jnp.zeros((len(user_id_array), self.n_items), bool)
-        from ganmf_tpu.ops.pallas_scorer import masked_topk_matmul
+        seen = self._fused_exclude_cold(uids, seen)
+        from ganmf_tpu.ops.scoring import masked_topk_matmul
 
         pair_ids = jnp.zeros((len(user_id_array), 1), jnp.int32)  # probe unused
         vals, idx, _, _ = masked_topk_matmul(
@@ -397,6 +397,12 @@ class Recommender:
         )
         vals, idx = np.asarray(vals), np.asarray(idx)
         return [idx[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
+
+    def _fused_exclude_cold(self, uids: jnp.ndarray, seen: jnp.ndarray) -> jnp.ndarray:
+        """The fused paths' exclusion mask for a uid batch. Models whose
+        ``score_device`` scores cold users -inf add them here; the default
+        scores cold users like any other."""
+        return seen
 
     def _serving_traceable(self) -> bool:
         """True when score_device/device_seen_rows are pure jnp programs of
@@ -595,14 +601,6 @@ class MatrixFactorizationRecommender(Recommender):
             return self._ItemKNNRecommender._serving_traceable()
         return True
 
-    # serve_all note: routing _serve_block through the VMEM streaming scorer
-    # (ops/pallas_scorer.masked_topk_scores) was measured same-process on
-    # v5e and LOSES inside the lax.map scan: 274 vs 193 ms (ML-1M, all
-    # users), 213 vs 153 ms (LastFM) — the scan serializes the kernel's
-    # grid pipelining that the standalone recommend_fused dispatch enjoys.
-    # The default dense block (one XLA matmul + where + top_k per block,
-    # Recommender._serve_block) is the keeper.
-
     def score_device(self, user_ids: jnp.ndarray) -> jnp.ndarray:
         U, V, cold = self._factors_device()
         scores = jnp.dot(jnp.take(U, user_ids, axis=0), V.T, precision=jax.lax.Precision.HIGHEST)
@@ -639,36 +637,20 @@ class MatrixFactorizationRecommender(Recommender):
             self._cold_user_mask = profile_length == 0
             self._invalidate_device_cache()
 
-    def recommend_fused(self, user_id_array, cutoff: int = 20, remove_seen_flag: bool = True,
-                        tile: int = 512):
-        """Serving-scale ranking through the Pallas fused scorer: the [B, I]
-        score matrix never leaves VMEM (ganmf_tpu.ops.pallas_scorer).
-        Equivalent results to recommend() for MF models."""
-        from ganmf_tpu.ops.pallas_scorer import masked_topk_scores
+    def _fused_serving_operands(self, uids: jnp.ndarray, max_len: int = None):
+        """(U[uids], V^T) for the fused ranking paths; None when cold users
+        score through the item-KNN fallback, which only ``score_device``
+        applies. ``max_len`` (a profile-length bound) does not apply to
+        factor rows."""
+        if self._cold_user_KNN_model_available:
+            return None
+        U, V, _ = self._factors_device()
+        return jnp.take(U, uids, axis=0), V.T
 
-        user_id_array = np.atleast_1d(np.asarray(user_id_array))
-        uids = jnp.asarray(user_id_array, dtype=jnp.int32)
-        U, V, cold = self._factors_device()
-        if remove_seen_flag:
-            seen = self.device_seen_rows(uids)
-        else:
-            seen = jnp.zeros((len(user_id_array), self.n_items), bool)
-        # TPU path compiles the kernel; CPU runs the interpreter
-        interpret = jax.default_backend() == "cpu"
-        vals, idx = masked_topk_scores(
-            jnp.take(U, uids, axis=0), V, seen, k=min(cutoff, self.n_items),
-            tile=min(tile, self.n_items), interpret=interpret,
-        )
-        vals, idx = np.asarray(vals), np.asarray(idx)
-        cold_np = np.asarray(jnp.take(cold, uids))
-        out = []
-        for b in range(len(user_id_array)):
-            if cold_np[b]:
-                out.append([])
-            else:
-                finite = np.isfinite(vals[b])
-                out.append(idx[b][finite].tolist())
-        return out
+    def _fused_exclude_cold(self, uids: jnp.ndarray, seen: jnp.ndarray) -> jnp.ndarray:
+        # score_device scores cold users -inf on every item
+        _, _, cold = self._factors_device()
+        return seen | jnp.take(cold, uids)[:, None]
 
     def _save_dict(self):
         out = {
@@ -735,14 +717,14 @@ class ItemSimilarityRecommender(Recommender):
 
     def _w_device_split(self):
         """Cached bf16 planes of the dense W for the split-plane scoring
-        matmul (ops/pallas_scorer.split_bf16_planes); False when W does not
+        matmul (ops/scoring.split_bf16_planes); False when W does not
         fit in HBM or splitting is disabled."""
         if self._device_w_planes is None:
             W = self._w_device()
             if W is False or _SIM_MATMUL_PASSES <= 0:
                 self._device_w_planes = False
             else:
-                from ganmf_tpu.ops.pallas_scorer import split_bf16_planes
+                from ganmf_tpu.ops.scoring import split_bf16_planes
 
                 self._device_w_planes = split_bf16_planes(W, _SIM_MATMUL_PASSES)
         return self._device_w_planes
@@ -784,7 +766,7 @@ class UserSimilarityRecommender(Recommender):
     """Scores = W[u] @ URM (reference Base/BaseSimilarityMatrixRecommender.py:97-116).
 
     The user-user W is kept dense in HBM when it fits so block scoring is a
-    single MXU matmul over the resident URM; otherwise blocks fall back to
+    single matmul over the resident URM; otherwise blocks fall back to
     host sparse products."""
 
     RECOMMENDER_NAME = "BaseUserSimilarityMatrixRecommender"
@@ -835,7 +817,7 @@ class UserSimilarityRecommender(Recommender):
             if W is False or _SIM_MATMUL_PASSES <= 0:
                 self._device_w_planes = False
             else:
-                from ganmf_tpu.ops.pallas_scorer import split_bf16_planes
+                from ganmf_tpu.ops.scoring import split_bf16_planes
 
                 self._device_w_planes = split_bf16_planes(W, _SIM_MATMUL_PASSES)
         return self._device_w_planes

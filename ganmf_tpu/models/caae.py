@@ -6,7 +6,7 @@ autoencoder trained with a REINFORCE reward on sampled items plus a masked
 reconstruction loss (:86-101); G' = a second autoencoder with a reward-only
 loss (:106-119). All three use plain SGD (:140-142).
 
-TPU redesign (the reference interleaves host-side CDF sampling with
+Device redesign (the reference interleaves host-side CDF sampling with
 device updates every step, :228-337):
   * epoch-start G/G' reconstructions of all profiles are computed once on
     device; ALL negative items for the D phase are drawn up front in one
@@ -173,8 +173,7 @@ def caae_epoch(
     # Two-level (bucketed) inverse-CDF tables. One draw only needs its
     # bucket row [NB] and the chosen bucket's within-row [S], so per-draw
     # HBM traffic is O(NB + I/NB) ~ O(2*sqrt(I)) elements instead of the
-    # full I-wide cdf row — the flat row gather made the D-phase
-    # bandwidth-bound (measured 623 ms/epoch on ML-1M; bucketed ~80 ms).
+    # full I-wide cdf row, which made the D phase bandwidth-bound.
     # Distribution is exactly p(bucket) * p(item | bucket) = p(item).
     NB = 64
     g_bcdf, g_wcdf = _bucketed_cdf_tables(jax.nn.softmax(g_logits_full, axis=1), NB)
@@ -195,8 +194,8 @@ def caae_epoch(
     # no term, so its gradient is identically zero), then item rows with the
     # bias folded in as column K. One chunk update is then exactly one row
     # gather and one scatter-add over [3B] fused indices instead of ten —
-    # the scan is gather/scatter-latency-bound, not FLOP-bound (measured
-    # ~9 ns/row on v5e regardless of op count; fewer ops, same rows).
+    # the scan is gather/scatter-latency-bound, not FLOP-bound, so fewer
+    # ops over the same rows is the saving.
     # Equivalence with the unfused form: XLA scatter-add applies duplicate
     # updates in operand order, so [u; U+pos; U+neg] reproduces
     # .at[u].add / .at[pos].add / .at[neg].add, and the gradients are

@@ -10,7 +10,7 @@ tables, fake profile u_e @ item_e^T, :75-84). Discriminator = single-hidden
 (:131-135; a = recon_coefficient = feature-matching weight, EBGAN-style
 margin loss.)
 
-TPU redesign: the URM lives dense in HBM; one epoch = one jitted program
+Device redesign: the URM lives dense in device memory; one epoch = one jitted program
 scanning d_steps x n_batches discriminator updates then g_steps x n_batches
 generator updates over a shuffled padded permutation (the reference runs
 the same schedule with per-step host densification, GANMF.py:172-203).
@@ -254,8 +254,8 @@ class GANMF(AdversarialRecommender):
         """``mesh_plan`` (ganmf_tpu.parallel.MeshPlan, optional): place the
         URM, embeddings and autoencoder kernels over a (data, model) device
         mesh; the same jitted epoch program then runs SPMD with
-        GSPMD-inserted collectives (user-axis grad psums over ICI,
-        item-axis contractions). Single-chip runs pass None.
+        GSPMD-inserted collectives (user-axis grad psums, item-axis
+        contractions). Single-device runs pass None.
 
         ``urm_storage``: "dense" keeps the [U, I] URM resident in HBM (the
         default; right whenever it fits). "csr" keeps only the padded-CSR

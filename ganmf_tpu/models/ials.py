@@ -3,7 +3,7 @@
 The reference solves the K x K normal equations one warm user/item at a
 time with np.linalg.inv (MatrixFactorization/IALSRecommender.py:137-201).
 Here each half-epoch is a single jitted program: the confidence-weighted
-Gram matrices for a chunk of rows are built with one MXU matmul against a
+Gram matrices for a chunk of rows are built with one matmul against a
 precomputed outer-product table and all chunk systems are solved with a
 batched residual-exit conjugate-gradient solver. Cold rows are left
 untouched, matching the reference's warm-only updates.
@@ -36,7 +36,7 @@ def _als_half_step(W: jnp.ndarray, P: jnp.ndarray, Y: jnp.ndarray, reg: float, c
     hi = jax.lax.Precision.HIGHEST
     YtY = jnp.dot(Y.T, Y, precision=hi) + reg * jnp.eye(K, dtype=Y.dtype)
 
-    # A_u = Y^T diag(w_u) Y collapses to one MXU matmul against the
+    # A_u = Y^T diag(w_u) Y collapses to one matmul against the
     # precomputed outer-product table Z[i] = y_i y_i^T: A = W @ Z. This
     # replaces the per-chunk [C, I, K] broadcast intermediate (bandwidth-
     # bound) with an [N, I] x [I, K^2] contraction the systolic array runs
@@ -234,8 +234,8 @@ def _flat_csr_device(csr, chunk: int):
 
 def _batched_cg(A: jnp.ndarray, b: jnp.ndarray, iters: int, rtol: float = 1e-5) -> jnp.ndarray:
     """Solve the batch of SPD K x K systems by conjugate gradients. A
-    batched LU (jnp.linalg.solve) runs off the MXU and dominated the IALS
-    epoch (~120 ms for 6040 50x50 systems on v5e); CG is matmul-only.
+    batched LU (jnp.linalg.solve) is the alternative; CG is matmul-only
+    (which of the two wins on the GPU is not measured yet).
 
     Iteration stops when every system's residual satisfies
     ||r|| <= rtol * ||b|| (capped at `iters`). These well-regularized

@@ -4,10 +4,10 @@ Completes the reference's vestigial kernel (GANRec/Cython/IRGAN_Cython.pyx:43
 — present in the repo but unreachable: its ``fit`` samples negatives and
 discards them, IRGAN_Cython.pyx:78-80, and no wrapper exists at the reference
 root). The pieces it does define fix the intended design, which this module
-implements in full, TPU-first:
+implements in full, as device programs:
 
 - dual MF scorers (generator + discriminator), each ``u @ V.T + item_bias``
-  (IRGAN_Cython.pyx:183-203 — a triple host loop there; one MXU matmul here);
+  (IRGAN_Cython.pyx:183-203 — a triple host loop there; one matmul here);
 - dynamic negative sampling: per positive interaction, draw ``DNS_K``
   unobserved candidates with probability proportional to the generator's
   current scores and keep the highest-scoring one
@@ -137,7 +137,7 @@ def _adversarial_epoch(
     """One adversarial epoch. D phase (x d_steps): pairwise logistic updates
     on (u, i+, j~G). G phase (x g_steps): REINFORCE over the full softmax —
     the surrogate logit gradient is (reward - baseline) * (onehot(j) - p),
-    whose parameter pullback is two MXU matmuls per chunk."""
+    whose parameter pullback is two matmuls per chunk."""
 
     def d_body(carry, xs):
         st = carry

@@ -1,7 +1,8 @@
 """KNN collaborative-filtering recommenders.
 
 ItemKNN (reference KNN/ItemKNNCFRecommender.py:18-54): optional BM25/TF-IDF
-reweighting, then item-item similarity with the TPU kernel. UserKNN is the
+reweighting, then item-item similarity built on the device
+(ops/similarity.py). UserKNN is the
 user-side analogue (reference KNN/UserKNNCFRecommender.py). ItemKNN with a
 caller-provided W covers ItemKNNCustomSimilarity, and a similarity-hybrid
 combinator matches ItemKNNSimilarityHybridRecommender.

@@ -1,6 +1,6 @@
 """SGD matrix-factorization trainers: BPR-MF, FunkSVD, AsySVD.
 
-TPU equivalents of the reference's Cython MF epochs
+Device equivalents of the reference's Cython MF epochs
 (MatrixFactorization/Cython/MatrixFactorization_Cython_Epoch.pyx:29-910 and
 the wrappers in MatrixFactorization_Cython.py:172-330): per-epoch sampled
 SGD updates over user/item factor tables with optional AdaGrad scaling,
@@ -191,13 +191,12 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
     ):
         # presample=True (default): every chunk's (u, i, r[, j]) samples are
         # drawn from the epoch-constant tables in one vectorized pass outside
-        # the serialized scan. Measured on a v5e chip (ML-1M, K=64, BPR):
-        # 73.6 ms/epoch vs 96.6 ms with in-scan sampling — a 24% win. There
-        # are no reference parity rows for the MF-SGD family (the root
+        # the serialized scan (not yet measured on the GPU against in-scan
+        # sampling). There are no reference parity rows for the MF-SGD family (the root
         # harness never invokes MatrixFactorization_Cython, SURVEY §2.3), so
         # changing the default RNG stream order is safe; pass False for the
         # in-scan stream. SLIM-BPR keeps presample=False because its parity
-        # rows are stream-sensitive and the measured gain was only ~4%.
+        # rows are stream-sensitive.
         if urm_storage not in ("dense", "csr"):
             raise ValueError(f"urm_storage must be 'dense' or 'csr', got {urm_storage!r}")
         # use_bias defaults True for the rating-prediction models and is

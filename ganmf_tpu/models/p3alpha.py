@@ -2,7 +2,7 @@
 
 The reference computes W = (Piu^a)(Pui^a) in 200-column host blocks with
 per-row argsort top-K (GraphBased/P3alphaRecommender.py:52-141). Here the
-walk product is one dense MXU matmul over HBM-resident transition matrices
+walk product is one dense matmul over device-resident transition matrices
 and top-K uses lax.top_k per row, then the reference's final column-wise
 top-K prune is applied.
 """
@@ -15,10 +15,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sps
-from sklearn.preprocessing import normalize
 
 from ganmf_tpu.data.device import dense_from_sparse
 from ganmf_tpu.models.base import ItemSimilarityRecommender, check_matrix, similarity_matrix_topk
+
+
+def l1_normalize_rows(X) -> sps.csr_matrix:
+    """Each row of a sparse matrix divided by its l1 norm; empty rows stay
+    empty. The norm is summed and the division taken in float64, then
+    stored in X's dtype (sklearn.preprocessing.normalize(norm="l1")
+    semantics)."""
+    X = sps.csr_matrix(X, copy=True)
+    rows = np.repeat(np.arange(X.shape[0]), np.diff(X.indptr))
+    norms = np.bincount(rows, weights=np.abs(X.data.astype(np.float64)),
+                        minlength=X.shape[0])
+    norms[norms == 0.0] = 1.0
+    X.data = (X.data / norms[rows]).astype(X.dtype)
+    return X
 
 
 @functools.partial(jax.jit, static_argnames=("topk", "l1_normalize"))
@@ -93,10 +106,10 @@ class P3alphaRecommender(_WalkRecommender):
                 self.URM_train.data = np.ones(self.URM_train.data.size, dtype=np.float32)
             self._invalidate_device_cache()
 
-        Pui = normalize(self.URM_train, norm="l1", axis=1)
+        Pui = l1_normalize_rows(self.URM_train)
         X_bool = self.URM_train.transpose(copy=True)
         X_bool.data = np.ones(X_bool.data.size, np.float32)
-        Piu = normalize(X_bool, norm="l1", axis=1)
+        Piu = l1_normalize_rows(X_bool)
 
         if alpha != 1.0:
             Pui = Pui.power(alpha)
@@ -134,13 +147,13 @@ class RP3betaRecommender(_WalkRecommender):
                 self.URM_train.data = np.ones(self.URM_train.data.size, dtype=np.float32)
             self._invalidate_device_cache()
 
-        Pui = normalize(self.URM_train, norm="l1", axis=1)
+        Pui = l1_normalize_rows(self.URM_train)
         X_bool = self.URM_train.transpose(copy=True)
         X_bool.data = np.ones(X_bool.data.size, np.float32)
         degree = np.zeros(self.n_items, dtype=np.float32)
         nonzero = np.asarray(X_bool.sum(axis=1)).ravel() > 0
         degree[nonzero] = np.power(np.asarray(X_bool.sum(axis=1)).ravel()[nonzero], -beta)
-        Piu = normalize(X_bool, norm="l1", axis=1)
+        Piu = l1_normalize_rows(X_bool)
 
         if alpha != 1.0:
             Pui = Pui.power(alpha)

@@ -2,9 +2,8 @@
 
 The reference wraps sklearn's randomized_svd (MatrixFactorization/
 PureSVDRecommender.py:29-37). Here the randomized range-finder runs on the
-TPU — it is matmul-dominated (A @ Omega, power iterations, Q^T A), exactly
-the shape the MXU wants — and only the tiny (k+p) x (k+p) SVD runs via
-jnp.linalg.svd.
+device — it is matmul-dominated (A @ Omega, power iterations, Q^T A) — and
+only the tiny (k+p) x (k+p) SVD runs via jnp.linalg.svd.
 """
 
 from __future__ import annotations
@@ -22,18 +21,18 @@ from ganmf_tpu.models.base import MatrixFactorizationRecommender
 
 _HI = jax.lax.Precision.HIGHEST
 
-# HBM budget for keeping the interaction matrix resident as dense bf16
-# (2 bytes/element) during a randomized-SVD fit. At ML-20M shape
-# (138,493 x 26,744) the bf16 matrix is 7.4 GB — comfortably inside a
-# v5e's 16 GB, where the f32 matrix (14.8 GB) is not.
+# Device-memory budget for keeping the interaction matrix resident as
+# dense bf16 (2 bytes/element) during a randomized-SVD fit. At ML-20M shape
+# (138,493 x 26,744) the bf16 matrix is 7.4 GB and the f32 one 14.8 GB.
+# Override with $GANMF_TPU_SVD_BF16_GB.
 _RESIDENT_BF16_LIMIT = int(float(os.environ.get("GANMF_TPU_SVD_BF16_GB", "9")) * (1 << 30))
 
 
 def _cholqr(Y):
     """One CholeskyQR pass: Q = Y R^-1 with R = chol(Y^T Y)^T.
 
-    Matmul + small-triangular-solve only — the MXU-friendly replacement
-    for Householder QR, which is serial and slow on TPU."""
+    Matmul + small-triangular-solve only — a matmul-shaped replacement
+    for Householder QR, which is serial."""
     G = jnp.dot(Y.T, Y, precision=_HI)
     G = G + 1e-7 * jnp.trace(G) / G.shape[0] * jnp.eye(G.shape[0], dtype=Y.dtype)
     L = jnp.linalg.cholesky(G)
@@ -79,11 +78,11 @@ def _puresvd_factors(A: jnp.ndarray, key, num_factors: int, n_iter: int):
 @functools.partial(jax.jit, static_argnames=("num_factors", "n_oversample", "n_iter"))
 def _puresvd_factors_resident(Ab, key, num_factors: int, n_oversample: int = 10, n_iter: int = 7):
     """Randomized SVD over a resident dense bf16 A: every range-finder pass
-    is one direct MXU matmul (bf16 x bf16 -> f32 accumulate) instead of
+    is one direct matmul (bf16 x bf16 -> f32 accumulate) instead of
     re-scattering padded-CSR chunks into dense slabs 2*n_iter+2 times —
-    the scatter traffic was the whole cost of the streamed build at ML-20M
-    (27.7 s at 0.06 TFLOP/s; same diagnosis as the int8 similarity build,
-    ops/similarity.py:338).
+    the scatter traffic, not the matmuls, bounds the streamed build at
+    ML-20M (same diagnosis as the int8 similarity build in
+    ops/similarity.py).
 
     The power-iteration subspace tolerates bf16 rounding of the iterate
     (CholeskyQR re-orthonormalizes in f32 each pass); the final projection
@@ -135,8 +134,8 @@ def _puresvd_factors_streamed(
 
     The dense [U, I] matrix never materializes (14.8 GB at ML-20M); each
     chunk densifies to [chunk, I] on the fly and feeds the same
-    CholeskyQR range-finder as the dense program. All FLOPs stay on the
-    MXU; HBM holds only the padded-CSR arrays, one chunk, and the thin
+    CholeskyQR range-finder as the dense program. All FLOPs are matmuls;
+    device memory holds only the padded-CSR arrays, one chunk, and the thin
     [U, k]/[I, k] iterates."""
     hi = jax.lax.Precision.HIGHEST
     n_rows_pad = idx.shape[0]
@@ -184,7 +183,7 @@ class PureSVDRecommender(MatrixFactorizationRecommender):
         if self._urm_streams():
             # dense f32 [U, I] would blow the HBM budget. Preferred: keep A
             # resident as dense bf16 (exact for bf16-representable values)
-            # so every pass is one MXU matmul; fall back to streaming the
+            # so every pass is one matmul; fall back to streaming the
             # A-products over padded-CSR chunks when even bf16 won't fit.
             chunk = 2048
             pc = self._padded_urm()

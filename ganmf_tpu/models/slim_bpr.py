@@ -2,8 +2,8 @@
 
 The reference trains one sample at a time in Cython over pointer-chasing
 sparse structures (SLIM_BPR/Cython/SLIM_BPR_Cython_Epoch.pyx:198-370,
-custom Sparse_Matrix_Tree_CSR / Triangular_Matrix storage). TPU redesign:
-the item-item W lives dense in HBM, each epoch draws n_users (u, i+, j-)
+custom Sparse_Matrix_Tree_CSR / Triangular_Matrix storage). Device redesign:
+the item-item W lives dense in device memory, each epoch draws n_users (u, i+, j-)
 triples on device and processes them in vectorized chunks under one jitted
 lax.scan — gathers of W rows, a masked row-dot for x_uij, sigmoid gradient,
 AdaGrad/RMSprop/Adam per-item caches and scatter-add row updates (mirrored
@@ -88,13 +88,11 @@ def _bpr_epoch(
             # the reference's triangular storage receives only row-oriented
             # writes; the shared cell {a, b} therefore reads as
             # W[a, b] + W[b, a] (SLIM_BPR_Cython_Epoch.pyx:1234+).
-            # Column selection rides the MXU as a one-hot matmul W @ S:
-            # XLA lowers take(W, idx, axis=1) through a full W transpose
-            # (~4 ms per chunk at LastFM's 1.2 GB W — it dominated every
-            # symmetric epoch), while the matmul streams W once through
-            # the MXU (~1.5 ms) and is bitwise-exact under HIGHEST
-            # precision (each output sums exactly one x*1.0 product;
-            # measured max |diff| = 0.0 against the gather).
+            # Column selection is a one-hot matmul W @ S, which streams W
+            # once instead of gathering columns through a transpose of W,
+            # and is bitwise-exact under HIGHEST precision (each output
+            # sums exactly one x*1.0 product; max |diff| = 0.0 against
+            # the gather).
             ij = jnp.concatenate([i, j])
             S = (ij[None, :] == jax.lax.broadcasted_iota(jnp.int32, (state.W.shape[0], 1), 0)).astype(state.W.dtype)
             cols = jnp.dot(state.W, S, precision=jax.lax.Precision.HIGHEST).T  # [2C, I]

@@ -3,8 +3,8 @@
 Column-block-distributed right-looking Cholesky: every chip owns a
 contiguous [n, W] column block of a symmetric positive-definite matrix
 (W = n / n_shards), and panels of width ``w`` are factored one at a time —
-the owner broadcasts its (already fully-updated) panel with one psum over
-ICI, every chip factors the w x w diagonal block redundantly (cheaper than
+the owner broadcasts its (already fully-updated) panel with one psum,
+every chip factors the w x w diagonal block redundantly (cheaper than
 a second collective), applies the triangular solve to the panel, and
 rank-w-updates only its own trailing columns. Forward/backward block
 substitution reuses the same broadcast-a-panel primitive, so a full

@@ -1,16 +1,16 @@
 """Multi-process runtime initialization and the collective facade.
 
 The reference is single-process (SURVEY §2.9/§5.8); this module is the
-TPU-native runtime layer it never had. ``initialize`` wires
-``jax.distributed`` for multi-host/multi-slice pods — after it, every
-process sees the global device set and ``make_mesh(n_slices=...)`` lays a
-(slice, data, model) mesh whose slice axis rides DCN. Single-process
-stays the no-op default: nothing here needs calling for one host.
+multi-process runtime layer it never had. ``initialize`` wires
+``jax.distributed`` for multi-host runs — after it, every process sees the
+global device set and ``make_mesh(n_slices=...)`` lays a (slice, data,
+model) mesh whose slice axis spans the hosts. Single-process stays the
+no-op default: nothing here needs calling for one host.
 
 All cross-device communication in the framework goes through GSPMD
 shardings or the named collectives below — never through backend-specific
-primitives — so the same program runs on one chip, one slice, or a
-multi-slice pod unchanged.
+primitives — so the same program runs on one device, one host, or several
+hosts unchanged.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def initialize(
     Arguments mirror ``jax.distributed.initialize``; all of them default
     from the standard environment (``JAX_COORDINATOR_ADDRESS``,
     ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) so launchers can configure
-    the pod purely through env vars. Calling with no configuration at all
+    the cluster purely through env vars. Calling with no configuration at all
     in a single-process run does nothing.
     """
     global _initialized

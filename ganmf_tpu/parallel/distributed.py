@@ -13,7 +13,7 @@ minibatch — jitted over a (data, model) mesh. Placement:
 
 Gradient reduction across the data axis and the item-dimension
 contractions across the model axis are inserted by GSPMD from these
-shardings — psums ride ICI, no hand-written collectives needed. The step
+shardings — no hand-written collectives needed. The step
 is the building block for a multi-chip fit(); ``dryrun`` in
 ``__graft_entry__`` exercises it on a virtual CPU mesh.
 """

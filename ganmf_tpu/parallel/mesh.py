@@ -1,15 +1,16 @@
 """Device mesh construction and sharding plans.
 
 The reference is strictly single-process/single-GPU (SURVEY §2.9) — this
-layer is new capability, designed TPU-first: a 2D mesh with a ``data``
-axis (users) riding ICI for gradient psums and a ``model`` axis (items)
-for sharding the item dimension of the URM, the generator's item
-embeddings and the discriminator's item-sized layers. An optional outer
-``slice`` axis maps multi-slice/multi-process deployments where the
-user/data dimension also spans DCN (slower) links: user-major tensors
-shard over (slice, data) so that only gradient psums ride DCN while the
-item-axis collectives stay inside each slice's ICI. Single-chip runs
-degenerate to no-op shardings.
+layer is new capability: a 2D mesh with a ``data`` axis (users) for
+gradient psums and a ``model`` axis (items) for sharding the item
+dimension of the URM, the generator's item embeddings and the
+discriminator's item-sized layers. The mesh follows the algorithm alone:
+the cards of one host are joined all to all, so no axis needs to match a
+physical link. An optional outer ``slice`` axis maps multi-process
+deployments (several hosts), whose links between hosts are slower:
+user-major tensors shard over (slice, data) so that only gradient psums
+cross hosts while the item-axis collectives stay inside each host.
+Single-device runs degenerate to no-op shardings.
 """
 
 from __future__ import annotations
@@ -128,9 +129,9 @@ def make_mesh(
 
     Defaults to all devices on the data axis. ``n_slices * n_data *
     n_model`` must fit in the device count; extra devices are left unused.
-    The slice axis is outermost so contiguous device ranges (one physical
-    slice each) land on one slice coordinate — collectives over data/model
-    then ride intra-slice ICI.
+    The slice axis is outermost so contiguous device ranges (one host
+    each) land on one slice coordinate — collectives over data/model then
+    stay inside a host.
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_data is None:

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Beyond-HBM training demonstration: GANMF with urm_storage="csr" on a
-synthetic dataset whose DENSE user-item matrix would not fit the chip.
+synthetic dataset whose DENSE user-item matrix would crowd the device.
 
 Default shape: 131,072 users x 65,536 items, ~100 interactions/user
-(~13M nnz). Dense f32 URM = 32 GB — 2x a v5e's 16 GB HBM — while the
-padded-CSR storage is O(nnz) (~a few hundred MB including row padding).
+(~13M nnz). Dense f32 URM = 32 GB, while the padded-CSR storage is O(nnz) (~a few hundred MB including row padding).
 The reference framework cannot run this at all: it densifies every
 minibatch on host from scipy (GANRec/GANMF.py:184) and CAAE holds the
 full dense matrix in RAM (CAAE.py:199).

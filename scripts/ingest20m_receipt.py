@@ -24,7 +24,6 @@ Host-only work: runs on the CPU backend (JAX_PLATFORMS=cpu) so it can
 share the machine with chip jobs. PERF rows are keyed "Ingest[20M] ...".
 """
 
-import json
 import os
 import shutil
 import subprocess
@@ -47,16 +46,7 @@ BACKUP_DIR = os.path.join(ROOT, "experiments", "datasets_backup_ingest")
 def _record_perf(name, seconds, note=""):
     import perf_report
 
-    rows = {}
-    perf_json = os.path.join(ROOT, "PERF.json")
-    if os.path.isfile(perf_json):
-        rows = {k: tuple(v) for k, v in json.load(open(perf_json)).items()}
-    rows[name] = (seconds, note)
-    from _timing import atomic_json_dump
-
-    atomic_json_dump({k: list(v) for k, v in rows.items()}, perf_json)
-    perf_report._write(rows)
-    print(f"PERF  {name:55s} {seconds*1e3:10.1f} ms  {note}", flush=True)
+    perf_report.record(perf_report.load_rows(), name, seconds, note)
 
 
 def stage_parse():

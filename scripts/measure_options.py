@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""One-off TPU measurement of the round-3 perf options that were built
-but whose defaults were gated on a real-chip measurement (ROADMAP.md):
+"""Measures the perf options that were built but whose defaults wait on a
+measurement on the GPU (ROADMAP.md, design debt 6):
 
   1. CAAE  d_scatter="direct" vs "dedup"   (ML-1M + LastFM steady epoch)
   2. SLIM-BPR presample=False vs True      (ML-1M 1-epoch)

@@ -5,7 +5,7 @@ reference protocol, and diff every metric against the published
 test_results.txt numbers.
 
 Usage: python scripts/parity_check.py [toppop|puresvd|itemknn|ganmf|cfgan|all]
-Runs on whatever jax backend is available (TPU when present).
+Runs on whatever jax backend is available (the GPU when present).
 """
 
 import json

@@ -106,20 +106,20 @@ def render_md(results):
     lines = [
         "# PARITY — retrained with reference best params on reference splits",
         "",
-        "MAP@20 / NDCG@20 vs the published `test_results.txt` (run on one TPU v5e chip).",
+        "MAP@20 / NDCG@20 vs the published `test_results.txt`.",
         "",
-        "| Config | MAP@20 ours | MAP@20 ref | dMAP | NDCG@20 ours | NDCG@20 ref | dNDCG | wall s |",
-        "|---|---|---|---|---|---|---|---|",
+        "| Config | MAP@20 ours | MAP@20 ref | dMAP | NDCG@20 ours | NDCG@20 ref | dNDCG |",
+        "|---|---|---|---|---|---|---|",
     ]
     for key in sorted(results):
         e = results[key]
         if "error" in e:
-            lines.append(f"| {key} | ERROR: {e['error']} | | | | | | {e.get('wall_s','')} |")
+            lines.append(f"| {key} | ERROR: {e['error']} | | | | | |")
         else:
             m, n = e["MAP@20"], e["NDCG@20"]
             lines.append(
                 f"| {key} | {m['ours']:.7f} | {m['ref']:.7f} | {m['delta']:+.5f} "
-                f"| {n['ours']:.7f} | {n['ref']:.7f} | {n['delta']:+.5f} | {e['wall_s']} |"
+                f"| {n['ours']:.7f} | {n['ref']:.7f} | {n['delta']:+.5f} |"
             )
     # the detailed notes (incl. the ItemKNN NDCG archaeology evidence) are
     # maintained by hand in PARITY_NOTES.md and appended verbatim

@@ -17,7 +17,7 @@ implicit-binarized. This runs the EXPLICIT pipeline end to end:
 
 Receipt: finite RMSE for both models (FunkSVD's must beat the
 predict-the-global-mean baseline), ranking metrics above TopPop, rows in
-SCALE20M.json under *_explicit keys.
+chiprun_out/scale20m.json under *_explicit keys.
 """
 
 import json
@@ -60,8 +60,8 @@ def main():
     print(f"{n_eval:,} eval users; global-mean baseline RMSE {base_rmse:.4f}", flush=True)
 
     out = {}
-    if os.path.isfile("SCALE20M.json"):
-        out = json.load(open("SCALE20M.json"))
+    if os.path.isfile(os.path.join("chiprun_out", "scale20m.json")):
+        out = json.load(open(os.path.join("chiprun_out", "scale20m.json")))
 
     def run(key, model, fit_kwargs):
         if key in out and np.isfinite(out[key].get("RMSE", np.nan)):
@@ -83,7 +83,7 @@ def main():
             "global_mean_rmse": round(base_rmse, 4),
         }
         out[key] = row
-        atomic_json_dump(out, "SCALE20M.json")
+        atomic_json_dump(out, os.path.join("chiprun_out", "scale20m.json"))
         print(f"{key}: MAP@20={row['MAP@20']:.5f} RMSE={row['RMSE']:.4f} "
               f"fit {fit_s:.1f}s eval {eval_s:.1f}s", flush=True)
         return row

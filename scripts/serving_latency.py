@@ -7,7 +7,6 @@ interactive path a live service would hit.
 Records PERF rows "Latency[<ds>] <family> recommend b=<n>" with p50 as the
 row time and p99 in the note.
 """
-import json
 import os
 import sys
 import time
@@ -17,7 +16,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
-from _timing import atomic_json_dump
 
 N_SINGLE = 200
 N_BATCH = 100
@@ -31,13 +29,7 @@ def _percentiles(samples):
 def _record(name, seconds, note=""):
     import perf_report
 
-    rows = {}
-    if os.path.isfile("PERF.json"):
-        rows = {k: tuple(v) for k, v in json.load(open("PERF.json")).items()}
-    rows[name] = (seconds, note)
-    atomic_json_dump({k: list(v) for k, v in rows.items()}, "PERF.json")
-    perf_report._write(rows)
-    print(f"{name:55s} {seconds*1e3:8.2f} ms  {note}", flush=True)
+    perf_report.record(perf_report.load_rows(), name, seconds, note)
 
 
 def measure(model, family, ds, n_users):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Similarity build at I >= 64k on ONE chip (VERDICT r3 #4 scale probe).
 
-At I = 65,536 the f32 [I, I] Gram is 17 GB — past the chip's HBM on its
-own — so compute_similarity routes through the column-blocked streamed
+At I = 65,536 the f32 [I, I] Gram is 17 GB, past the Gram budget
+(ops/similarity._GRAM_BYTE_LIMIT), so compute_similarity routes through the column-blocked streamed
 build (ops/similarity._similarity_topk_colblock): the Gram materializes in
 [I, width] slabs, every slab runs the same compiled program, and only the
 [width, k] rankings come back. Binary data additionally rides the one-pass
@@ -38,18 +38,13 @@ def main():
     print(json.dumps({"bench": f"ItemKNN cosine build beyond-G-HBM (U={U}, I={I}, topK=100)",
                       "s": round(wall, 1), "w_nnz": int(W.nnz)}), flush=True)
 
-    from _timing import atomic_json_dump
     import perf_report
 
-    rows = {k: tuple(v) for k, v in json.load(open("PERF.json")).items()} if os.path.isfile("PERF.json") else {}
-    rows[f"ItemKNN[{U//1024}k x {I//1024}k] cosine build (int8 A-resident col-blocked)"] = (
-        wall, "f32 [I,I] Gram = 17 GB > HBM; dense int8 A (8.6 GB) read per slab on the "
-        "MXU (int8xint8->int32, exact); 658.7 s with the re-scattering bf16 slab build; "
-        "scripts/simbuild_65k.py"
-    )
-    rows.pop(f"ItemKNN[{U//1024}k x {I//1024}k] cosine build (col-blocked bf16 Gram)", None)
-    atomic_json_dump({k: list(v) for k, v in rows.items()}, "PERF.json")
-    perf_report._write(rows)
+    perf_report.record(
+        perf_report.load_rows(),
+        f"ItemKNN[{U//1024}k x {I//1024}k] cosine build (int8 A-resident col-blocked)", wall,
+        "f32 [I,I] Gram = 17 GB; dense int8 A (8.6 GB) read per slab by an int8 matmul "
+        "(int8xint8->int32, exact); scripts/simbuild_65k.py")
 
 
 if __name__ == "__main__":

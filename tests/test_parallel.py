@@ -185,8 +185,8 @@ def test_ganmf_fit_on_mesh(urm_pair):
         np.asarray(model.params.user_emb), np.asarray(single.params.user_emb), rtol=2e-4, atol=2e-6
     )
 
-    # and the full fit on the 3-axis (slice, data, model) mesh — the DCN
-    # outer-axis plan of parallel/mesh.py — matches the same trajectory
+    # and the full fit on the 3-axis (slice, data, model) mesh — the
+    # multi-host outer-axis plan of parallel/mesh.py — matches the same trajectory
     sliced = GANMF(train, mode="user", seed=42)
     sliced.fit(num_factors=8, emb_dim=16, epochs=3, batch_size=16,
                mesh_plan=make_mesh(n_data=2, n_model=2, n_slices=2))

@@ -32,6 +32,8 @@ def test_streamed_gram_matches_dense(monkeypatch, similarity):
     urm = _rand_urm()
     dense = simmod.compute_similarity(urm, similarity=similarity, topK=10, shrink=1.0)
     monkeypatch.setattr(simmod, "_DENSE_A_BYTE_LIMIT", 1)  # force streaming
+    # the CPU reports no memory limit; size the gate as on an 80 GB device
+    monkeypatch.setattr(simmod, "_device_memory_bytes", lambda: 80 << 30)
     streamed = simmod.compute_similarity(urm, similarity=similarity, topK=10, shrink=1.0)
     np.testing.assert_allclose(dense.toarray(), streamed.toarray(), rtol=2e-5, atol=2e-6)
 
@@ -44,11 +46,31 @@ def test_resident_gram_matches_streamed_and_dense(monkeypatch):
     urm = _rand_urm(seed=5, binary=True)
     dense = simmod.compute_similarity(urm, similarity="cosine", topK=10, shrink=1.0)
     monkeypatch.setattr(simmod, "_DENSE_A_BYTE_LIMIT", 1)  # force streaming
+    # the CPU reports no memory limit; size the gate as on an 80 GB device
+    monkeypatch.setattr(simmod, "_device_memory_bytes", lambda: 80 << 30)
     resident = simmod.compute_similarity(urm, similarity="cosine", topK=10, shrink=1.0)
-    monkeypatch.setattr(simmod, "_CHIP_HBM_BYTES", 1)  # starve the resident gate
+    monkeypatch.setattr(simmod, "_device_memory_bytes", lambda: 1)  # starve the resident gate
     streamed = simmod.compute_similarity(urm, similarity="cosine", topK=10, shrink=1.0)
     np.testing.assert_array_equal(resident.toarray(), streamed.toarray())
     np.testing.assert_allclose(dense.toarray(), resident.toarray(), rtol=2e-5, atol=2e-6)
+
+
+def test_device_memory_bytes_reads_the_device_limit(monkeypatch):
+    """Slab sizing reads the device's own allocation limit, and a device
+    that reports none (the CPU) is an error, not a guessed default."""
+    import jax
+
+    with pytest.raises(RuntimeError, match="reports no memory limit"):
+        simmod._device_memory_bytes()
+
+    class _Dev:
+        platform, device_kind = "gpu", "fake"
+
+        def memory_stats(self):
+            return {"bytes_limit": 60 << 30, "bytes_in_use": 0}
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [_Dev()])
+    assert simmod._device_memory_bytes() == 60 << 30
 
 
 def test_streamed_gram_row_weights(monkeypatch):

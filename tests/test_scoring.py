@@ -3,27 +3,34 @@ import pytest
 
 import jax.numpy as jnp
 
-from ganmf_tpu.ops.pallas_scorer import masked_topk_scores
+from ganmf_tpu.ops.scoring import masked_topk_matmul
 
 
-@pytest.mark.parametrize("I", [64, 96])  # non-multiple exercises tile padding
+@pytest.mark.parametrize("I", [64, 96])
 def test_masked_topk_matches_dense(I):
+    """The MF route (U_b x V^T through the fused XLA program) ranks and
+    probes exactly like a dense numpy scoring of the same factors."""
     rng = np.random.RandomState(0)
-    B, K, k = 8, 16, 5
+    B, K, k, P = 8, 16, 5, 3
     U = rng.randn(B, K).astype(np.float32)
     V = rng.randn(I, K).astype(np.float32)
-    mask = (rng.rand(B, I) < 0.2).astype(np.int8)
+    mask = rng.rand(B, I) < 0.2
+    pair_ids = rng.randint(0, I, (B, P)).astype(np.int32)
 
-    vals, idx = masked_topk_scores(
-        jnp.asarray(U), jnp.asarray(V), jnp.asarray(mask), k=k, tile=32, interpret=True
+    vals, idx, ps, pf = masked_topk_matmul(
+        jnp.asarray(U), jnp.asarray(V).T, jnp.asarray(mask), jnp.asarray(pair_ids), k=k
     )
-    scores = U @ V.T
-    scores[mask.astype(bool)] = -np.inf
-    ref_idx = np.argsort(-scores, axis=1)[:, :k]
+    scores = U.astype(np.float64) @ V.T.astype(np.float64)
+    scores[mask] = -np.inf
+    ref_idx = np.argsort(-scores, axis=1, kind="stable")[:, :k]
     np.testing.assert_allclose(
         np.asarray(vals), np.take_along_axis(scores, ref_idx, axis=1), rtol=1e-5, atol=1e-5
     )
     np.testing.assert_array_equal(np.asarray(idx), ref_idx)
+    probe = np.take_along_axis(scores, pair_ids, axis=1)
+    fin = np.isfinite(probe)
+    np.testing.assert_array_equal(np.asarray(pf) > 0, fin)
+    np.testing.assert_allclose(np.asarray(ps), np.where(fin, probe, 0.0), rtol=1e-5, atol=1e-5)
 
 
 def test_recommend_fused_matches_recommend(urm_pair):
@@ -34,8 +41,28 @@ def test_recommend_fused_matches_recommend(urm_pair):
     model.fit(num_factors=6)
     users = np.arange(10)
     regular = model.recommend(users, cutoff=7, remove_seen_flag=True)
-    fused = model.recommend_fused(users, cutoff=7, remove_seen_flag=True, tile=16)
+    fused = model.recommend_fused(users, cutoff=7, remove_seen_flag=True)
     assert fused == regular
+
+
+def test_recommend_fused_mf_cold_users_and_unmasked(urm_pair):
+    """Cold users get empty lists from both routes (score_device scores
+    them -inf), with and without the seen mask."""
+    from ganmf_tpu.models import PureSVDRecommender
+
+    train, _ = urm_pair
+    train = train.tolil()
+    train[3] = 0
+    train[7] = 0
+    train = train.tocsr()
+    train.eliminate_zeros()
+    model = PureSVDRecommender(train)
+    model.fit(num_factors=6)
+    users = np.arange(12)
+    for flag in (True, False):
+        fused = model.recommend_fused(users, cutoff=7, remove_seen_flag=flag)
+        assert fused == model.recommend(users, cutoff=7, remove_seen_flag=flag)
+        assert fused[3] == [] and fused[7] == []
 
 
 def test_recommend_fused_similarity_matches_recommend(urm_pair):
@@ -102,13 +129,10 @@ def test_split_plane_serving_gate(urm_pair, monkeypatch):
                     assert sorted(np.round(s64[u, lf], 12)) == sorted(np.round(s64[u, lr], 12)), u
 
 
-def test_masked_topk_matmul_mask_from_rows_and_approx(urm_pair):
+def test_masked_topk_matmul_mask_from_rows(urm_pair):
     """mask_from_rows derives the exclusion from the left operand (the
-    user profile) — identical output to an explicit seen mask; use_approx
-    (lax.approx_max_k at recall 1.0) returns the exact top-k values."""
+    user profile) — identical output to an explicit seen mask."""
     import jax.numpy as jnp
-
-    from ganmf_tpu.ops.pallas_scorer import masked_topk_matmul
 
     rng = np.random.RandomState(11)
     B, I, P, k = 16, 120, 6, 10
@@ -123,12 +147,6 @@ def test_masked_topk_matmul_mask_from_rows_and_approx(urm_pair):
     got = masked_topk_matmul(rows_j, W_j, None, pid, k=k, mask_from_rows=True)
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    ap = masked_topk_matmul(rows_j, W_j, seen, pid, k=k, use_approx=True)
-    # exact top-k VALUES (tie order may differ); probes identical
-    np.testing.assert_allclose(np.asarray(ap[0]), np.asarray(ref[0]), rtol=0, atol=0)
-    np.testing.assert_array_equal(np.asarray(ap[2]), np.asarray(ref[2]))
-    np.testing.assert_array_equal(np.asarray(ap[3]), np.asarray(ref[3]))
 
 
 def test_padded_rows_dense_crop_exact():
@@ -158,8 +176,8 @@ def test_padded_rows_dense_crop_exact():
 
 
 def test_eval_length_ordered_blocks_match_dense(urm_pair, monkeypatch):
-    """Length-ordered cropped blocks + mask_from_rows + approx ranking give
-    the same metrics as the pre-optimization path (forced single uncropped
+    """Length-ordered cropped blocks + mask_from_rows + split-plane scoring
+    give the same metrics as the pre-optimization path (forced single uncropped
     ordering via a tiny block size and the gate pinned high/low)."""
     from ganmf_tpu.eval import EvaluatorHoldout
     from ganmf_tpu.models import base as base_mod

@@ -120,7 +120,7 @@ def test_bf16_gram_exact_on_binary():
     """Binary data takes the one-pass bf16 Gram (similarity.py bf16_ok):
     0/1 are exact in bf16 and the accumulator is f32, so the Gram — and
     therefore the pruned W — must be bitwise identical to the f32-HIGHEST
-    build (on-chip receipt: scripts/bf16_gram_receipt.py)."""
+    build (device check: scripts/bf16_gram_receipt.py)."""
     import os
 
     import jax.numpy as jnp
@@ -216,6 +216,8 @@ def test_colblocked_streamed_equals_dense(monkeypatch):
 
     monkeypatch.setattr(simmod, "_DENSE_A_BYTE_LIMIT", 1)  # force streamed
     monkeypatch.setattr(simmod, "_GRAM_BYTE_LIMIT", 4 * 40 * 16)  # force col blocks
+    # the CPU reports no memory limit; size slabs as on an 80 GB device
+    monkeypatch.setattr(simmod, "_device_memory_bytes", lambda: 80 << 30)
     for (m, s), exp in zip(cases, expected):
         got = compute_similarity(m, similarity=s, topK=9, shrink=0.5)
         assert got.nnz == exp.nnz, s
@@ -239,6 +241,8 @@ def test_colblocked_int8_matches_dense(monkeypatch):
 
     monkeypatch.setattr(simmod, "_DENSE_A_BYTE_LIMIT", 1)  # force streamed
     monkeypatch.setattr(simmod, "_GRAM_BYTE_LIMIT", 4 * 40 * 16)  # force col blocks
+    # the CPU reports no memory limit; size slabs as on an 80 GB device
+    monkeypatch.setattr(simmod, "_device_memory_bytes", lambda: 80 << 30)
     for s, exp in expected.items():
         got_int8 = compute_similarity(binary, similarity=s, topK=9, shrink=0.5)
         monkeypatch.setattr(simmod, "_INT8_A_BYTE_LIMIT", 0)
